@@ -21,41 +21,21 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--spp", type=int, default=None)
     p.add_argument("--depth", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--hit", default="auto", choices=["auto", "brute", "bvh", "mega"])
+    p.add_argument("--hit", default="auto",
+                   choices=["auto", "brute", "bvh", "triton"])
     p.add_argument("--mode", default="while", choices=["while", "scan"])
     p.add_argument("--checkpoint", default=None, help="resume/checkpoint file (npz)")
     p.add_argument("--trace-dir", default=None, help="jax.profiler trace output dir")
     p.add_argument("--log", default=None, help="JSONL log path")
     p.add_argument("--devices", type=int, default=0,
                    help="shard over N devices (0 = single-device renderer)")
-    p.add_argument("--phases", default=None,
-                   help="megakernel phase schedule, e.g. 2,3,15 "
-                        "(default: auto)")
-    p.add_argument("--ray-order", default="sample",
-                   choices=["sample", "pixel"],
-                   help="lane layout (pixel-major tightens per-tile cones)")
-    p.add_argument("--spp-chunk", type=int, default=None,
-                   help="samples per launch (with pixel-major layout)")
-    p.add_argument("--clusters", default=None,
-                   choices=["slab", "frustum", "list"],
-                   help="opt-in megakernel sphere-sweep cluster culling")
-    p.add_argument("--sort-regions", type=int, default=1,
-                   help="compaction sorts over N independent regions")
-    p.add_argument("--schedule", default="phased",
-                   choices=["phased", "pool"],
-                   help="phased launches (default) or the regenerating "
-                        "persistent-wavefront pool (render/pool.py)")
-    p.add_argument("--auto-prefix", action="store_true",
-                   help="plan per-phase live prefixes with an untimed "
-                        "counts pass, then render with prefix-sliced "
-                        "compaction (exactness checked; measured +40%% "
-                        "throughput on the final scene, round 5)")
 
 
 def cmd_render(args) -> int:
     from .models.scenes import build
     from .render.renderer import Renderer
     from .utils import checkpoint as ckpt
+    from .utils.compile_cache import enable_compile_cache
     from .utils.image_io import write_image
     from .utils.logging import JsonlLogger, scene_stats
     from .utils.profiling import trace_to
@@ -68,6 +48,7 @@ def cmd_render(args) -> int:
     if args.depth:
         overrides["max_depth"] = args.depth
 
+    enable_compile_cache()
     log = JsonlLogger(args.log)
     scene, cfg = build(args.scene, **overrides)
     log.log("scene_compiled", scene=args.scene, **scene_stats(scene))
@@ -79,36 +60,11 @@ def cmd_render(args) -> int:
 
             mesh = make_mesh((args.devices,), ("dp",))
             radiance, segments = render_sharded(
-                scene, cfg, mesh, seed=args.seed,
-                hit_method=(args.hit if args.hit in ("bvh", "mega")
-                            else "brute"),
-            )
+                scene, cfg, mesh, seed=args.seed, hit_method=args.hit)
             write_image(args.out, radiance)
             log.log("render_done", out=args.out, segments=segments, devices=args.devices)
         else:
-            phases = ([int(x) for x in args.phases.split(",")]
-                      if args.phases else None)
-            clusters = {"slab": True}.get(args.clusters, args.clusters)
-            rkw = dict(hit_method=args.hit, mode=args.mode,
-                       phase_depths=phases, ray_order=args.ray_order,
-                       spp_chunk=args.spp_chunk, use_clusters=clusters,
-                       sort_regions=args.sort_regions,
-                       schedule=args.schedule)
-            if args.auto_prefix and cfg.max_depth >= 12 and phases is None:
-                # finer schedule wins WITH sliced prefixes (CLAUDE.md
-                # round-5 schedule sweep)
-                rkw["phase_depths"] = [2, 2, 3, 4, cfg.max_depth - 11]
-            r = Renderer(cfg, **rkw)
-            if args.auto_prefix and args.schedule == "phased":
-                try:
-                    pref = r.plan_phase_prefixes(scene, seed=args.seed)
-                    if pref is not None:
-                        r = Renderer(cfg, **rkw, phase_prefixes=pref)
-                except Exception as e:
-                    print(f"auto-prefix unavailable ({e}); "
-                          "rendering unprefixed")
-                    rkw["phase_depths"] = phases
-                    r = Renderer(cfg, **rkw)
+            r = Renderer(cfg, hit_method=args.hit, mode=args.mode)
             resume = ckpt.load_render_state(args.checkpoint) if args.checkpoint else None
             cb = (lambda st: ckpt.save_render_state(args.checkpoint, st)) if args.checkpoint else None
             res = r.render(scene, seed=args.seed, progress=True,

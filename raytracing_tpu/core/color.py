@@ -1,7 +1,7 @@
 """Color pipeline: linear radiance → gamma-corrected 8-bit
 (reference: src/common/color.hpp:14-58).
 
-On TPU this is a single vectorized pass over the whole image; the host only
+On device this is a single vectorized pass over the whole image; the host only
 sees the final u8 buffer.
 """
 from __future__ import annotations

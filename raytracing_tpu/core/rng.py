@@ -1,7 +1,7 @@
 """Counter-based, stateless RNG for the wavefront path tracer.
 
 The reference uses libc ``std::rand()`` — unseeded, global-state, not
-thread-safe (reference: src/common/rtweekend.hpp:23-39). A TPU wavefront
+thread-safe (reference: src/common/rtweekend.hpp:23-39). A wavefront
 renderer needs the opposite: every random draw must be a *pure function* of
 (ray identity, bounce, stream, seed) so that
 
@@ -12,7 +12,7 @@ renderer needs the opposite: every random draw must be a *pure function* of
 
 We use the PCG4D hash (Jarzynski & Olano, "Hash Functions for GPU Rendering",
 JCGT 2020 — public domain construction, standard in GPU path tracers): 4
-u32 words in, 4 decorrelated u32 words out, ~12 integer VPU ops. This is
+u32 words in, 4 decorrelated u32 words out, ~12 integer ops. This is
 dramatically cheaper than threefry per draw and statistically more than
 adequate for Monte Carlo rendering.
 
@@ -85,7 +85,7 @@ def uniform4(uid: jnp.ndarray, sample: jnp.ndarray, ctr: jnp.ndarray, seed) -> j
 
 # ---------------------------------------------------------------------------
 # Samplers. The reference uses rejection sampling (vec3.hpp:158-204) which
-# cannot vectorize on TPU (data-dependent while loops); we use the standard
+# cannot vectorize (data-dependent while loops); we use the standard
 # analytic transforms which sample the *same distributions* (SURVEY.md §2.1).
 # ---------------------------------------------------------------------------
 

@@ -1,9 +1,9 @@
-"""Vector math on ``(..., 3)`` arrays — the TPU-native replacement for the
+"""Vector math on ``(..., 3)`` arrays — the replacement for the
 reference's ``vec3`` class (reference: src/common/vec3.hpp:8-226).
 
 Everything here is shape-polymorphic over leading batch dimensions and pure,
-so it vectorizes on the VPU and is differentiable. There is deliberately no
-vec3 *class*: on TPU the hot path works on struct-of-arrays batches, and a
+so it vectorizes and is differentiable. There is deliberately no
+vec3 *class*: the hot path works on struct-of-arrays batches, and a
 3-vector is just the trailing axis of an array.
 """
 from __future__ import annotations

@@ -1,17 +1,15 @@
 """Differentiable rendering: gradients of image losses w.r.t. scene and
 camera parameters.
 
-Three replay tiers exist, newest-first:
+Three gradient paths exist:
 
-* ``replay_kernel.replay_grads_sorted`` — **the production path** (used
-  by bench.py and the fwd+bwd benchmark): Pallas backward replay over
-  rays sorted by recorded path length, one-hot MXU table-gradient
-  reduction. 44.5M rays/s fwd+bwd on the final-scene workload (round 4).
-* ``replay_fast`` — pure-XLA table-gather replay; CPU/debug tier and
-  the source of ``build_replay_table`` (which the kernel tier reuses).
-* ``replay`` — original full-recompute XLA replay; slowest, kept as the
-  maximally-simple correctness oracle for the other two (all three are
-  tested bit-compatible in tests/test_replay*.py).
+* ``gradients.render_once`` — autodiff through the whole integrator,
+  closest-hit search included; the reference for the other two.
+* ``replay.render_replay`` — decision replay: a forward pass records the
+  winning primitive per (ray, bounce), then only the continuous math is
+  re-traced and differentiated (the fwd+bwd path bench.py measures).
+* ``replay_fast.replay_trace_fast`` — the same replay with one packed-table
+  gather per bounce (tested bit-compatible in tests/test_replay_fast.py).
 """
 from .gradients import camera_grad, mse_loss, render_once, scene_grad
 from .replay import record_decisions, render_replay, replay_trace

@@ -96,10 +96,13 @@ def mse_loss(
     cfg: CameraConfig,
     params: Optional[CameraParams] = None,
     seed: int = 0,
+    render_fn: Optional[Callable] = None,
     **kwargs,
 ) -> jnp.ndarray:
-    """Mean-squared pixel loss against a target image."""
-    img = render_once(scene, cfg, params, seed, **kwargs)
+    """Mean-squared pixel loss against a target image. ``render_fn``
+    (default ``render_once``) may be ``diff.replay.render_replay``, which
+    has the same signature and image but a cheaper backward."""
+    img = (render_fn or render_once)(scene, cfg, params, seed, **kwargs)
     return jnp.mean((img - target) ** 2)
 
 

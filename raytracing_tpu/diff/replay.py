@@ -12,12 +12,11 @@ the *continuous* math conditioned on the winner.
 
 So the fast differentiable path splits rendering into two passes, in the
 spirit of path-replay backpropagation (Vicini et al. 2021), adapted to a
-wavefront TPU tracer:
+wavefront tracer:
 
-1. **Decision pass** (not differentiated): any fast forward trace records
-   the winning global primitive id per (ray, bounce) — ``-1`` for miss.
-   On TPU this is the Pallas megakernel (ops/megakernel_block.py
-   ``want_ids``); the XLA fallback here works with any ``hit_fn``.
+1. **Decision pass** (not differentiated): the forward wavefront with any
+   ``hit_fn`` (the fastest one for the device) records the winning global
+   primitive id per (ray, bounce) — ``-1`` for miss.
 2. **Replay pass** (differentiated): re-trace the *same* paths, but at
    each bounce intersect only the recorded winner — a gather plus a few
    dozen FLOPs per segment instead of a sweep over the whole scene. Every
@@ -35,22 +34,12 @@ throughput land within a small factor of forward-only throughput.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
 
-from ..core import vecmath as vm
-from ..ops.intersect import (
-    BIG,
-    PARALLEL_EPS,
-    T_MIN,
-    HitBatch,
-    closest_hit_brute,
-    hit_attributes,
-    quad_plane_basis,
-)
+from ..ops.intersect import T_MIN, closest_hit_brute, hit_from_id
 from ..render import camera as cam_mod
 from ..render.camera import CameraConfig, CameraParams
 from ..render.integrator import _bounce_once
@@ -82,8 +71,7 @@ def record_decisions(
 
     ``return_active`` additionally returns the (max_depth, B) bool mask of
     lanes that were live entering each bounce — the set of (bounce, ray)
-    slots whose recorded id is meaningful (used by the megakernel-ids
-    parity tests).
+    slots whose recorded id is meaningful.
     """
     B = o.shape[0]
     background = jnp.asarray(background, jnp.float32)
@@ -107,66 +95,6 @@ def record_decisions(
     if return_active:
         return ids, jax.lax.stop_gradient(act)
     return ids
-
-
-def winner_t(
-    scene: Scene,
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    time: jnp.ndarray,
-    prim_id: jnp.ndarray,   # (B,) global id, -1 = miss
-    t_min: float = T_MIN,
-) -> jnp.ndarray:
-    """Differentiable winner-t recompute for a *known* primitive per ray —
-    the single-primitive forms of sphere_ts/quad_ts (sphere.hpp:47-80,
-    quad.hpp:44-62). Bit-matches the sweep's candidate t for the winning
-    row: the nearest root in (t_min, closest-so-far) is always the nearest
-    root in (t_min, ∞) for the *winner* (a farther root of the same sphere
-    cannot beat the nearer one), so no t_max clip is needed here."""
-    n_sph = scene.n_spheres
-    valid = prim_id >= 0
-    pid = jnp.where(valid, prim_id, 0)
-    is_quad = pid >= n_sph
-    sid = jnp.clip(pid, 0, n_sph - 1)
-    qid = jnp.clip(pid - n_sph, 0, scene.n_quads - 1)
-
-    sph = scene.spheres
-    c = sph.center[sid]
-    if scene.flags.has_moving:
-        c = c + time[:, None] * sph.velocity[sid]
-    oc = o - c
-    a = vm.length_squared(d)
-    half_b = jnp.sum(oc * d, axis=-1)
-    cq = vm.length_squared(oc) - sph.radius[sid] * sph.radius[sid]
-    disc = half_b * half_b - a * cq
-    sqrtd = vm.safe_sqrt(disc)
-    root0 = (-half_b - sqrtd) / a
-    root1 = (-half_b + sqrtd) / a
-    t_s = jnp.where(root0 > t_min, root0, root1)
-
-    normal_all, dconst_all, _, _ = quad_plane_basis(scene)
-    qn = normal_all[qid]
-    denom = jnp.sum(qn * d, axis=-1)
-    safe_denom = jnp.where(jnp.abs(denom) < PARALLEL_EPS, 1.0, denom)
-    t_q = (dconst_all[qid] - jnp.sum(qn * o, axis=-1)) / safe_denom
-
-    t = jnp.where(is_quad, t_q, t_s)
-    return jnp.where(valid, t, BIG)
-
-
-def hit_from_id(
-    scene: Scene,
-    prim_id: jnp.ndarray,
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    time: jnp.ndarray,
-    t_min: float = T_MIN,
-) -> HitBatch:
-    """Full differentiable HitBatch for a recorded winner id — winner-t
-    recompute + the shared attribute recompute (normal/front_face/UV,
-    ops/intersect.py hit_attributes)."""
-    t = winner_t(scene, o, d, time, prim_id, t_min)
-    return hit_attributes(scene, o, d, time, t, jnp.where(prim_id >= 0, prim_id, 0))
 
 
 def replay_trace(
@@ -233,8 +161,8 @@ def render_replay(
     """Drop-in fast-gradient counterpart of diff/gradients.py
     ``render_once``: identical output image, but ``jax.grad`` through it
     never differentiates (or re-executes, under remat) the closest-hit
-    search. Pass precomputed ``ids`` (e.g. from the TPU megakernel's
-    ``want_ids`` decision pass) to skip the XLA decision pass entirely."""
+    search. Pass precomputed ``ids`` (from ``record_decisions``) to skip
+    the decision pass."""
     if params is None:
         params = CameraParams.from_config(cfg)
     derived = cam_mod.derive(cfg, params)
@@ -266,91 +194,3 @@ def render_replay(
     if return_segments:
         return img, segments
     return img
-
-
-def render_replay_fast(
-    scene: Scene,
-    cfg: CameraConfig,
-    params: Optional[CameraParams] = None,
-    seed: int = 0,
-    remat: bool = True,
-    sample_start: int = 0,
-    spp: Optional[int] = None,
-    return_segments: bool = False,
-    interpret: bool = False,
-    phase_depths=None,
-    ids: Optional[jnp.ndarray] = None,
-    return_ids: bool = False,
-):
-    """``render_replay`` with the Pallas megakernel as the decision pass —
-    the production fwd+bwd path on TPU (bench.py bench_fwd_bwd wiring as a
-    library call). Pads the pixel batch to the kernel's 1024-ray block
-    multiple (padding rays start dead and contribute nothing), records
-    winner ids with ``trace_megakernel(want_ids=True)`` under
-    stop_gradient, and differentiates only the O(B·depth) replay.
-    ``interpret=True`` runs the kernel in interpret mode (CPU CI).
-
-    The decision pass flattens the scene host-side, so it cannot run on
-    tracers: under ``jax.jit``/``jax.grad`` record the ids once outside
-    (``return_ids=True``) and pass them back in (``ids=...``) — see
-    bench.py bench_fwd_bwd for the chunked production pattern.
-    """
-    from ..ops.megakernel import BLOCK, build_mega_scene, trace_megakernel
-
-    if params is None:
-        params = CameraParams.from_config(cfg)
-    if ids is None:
-        mega = build_mega_scene(scene)
-        if not mega.supported:
-            assert not return_ids, "scene unsupported by the megakernel"
-            return render_replay(
-                scene, cfg, params, seed, remat=remat,
-                sample_start=sample_start, spp=spp,
-                return_segments=return_segments,
-            )
-    derived = cam_mod.derive(cfg, params)
-    n_pix = cfg.n_pixels
-    if spp is None:
-        spp = cfg.samples_per_pixel
-    npix_pad = -(-n_pix // BLOCK) * BLOCK
-    pixel_ids = jnp.tile(
-        jnp.minimum(jnp.arange(npix_pad, dtype=jnp.int32), n_pix - 1), spp
-    )
-    active0 = jnp.tile(jnp.arange(npix_pad) < n_pix, spp)
-    sample_ids = sample_start + jnp.repeat(
-        jnp.arange(spp, dtype=jnp.int32), npix_pad
-    )
-    o, d, t = cam_mod.generate_rays(
-        cfg, derived, pixel_ids, sample_ids, jnp.uint32(seed),
-        motion_blur=scene.flags.has_moving,
-    )
-    bg = jnp.asarray(cfg.background, jnp.float32)
-    if ids is None:
-        # mega's tables are host-built constants (no gradient path); the
-        # rays are stop-graded so jax.grad never transposes the kernel
-        from ..ops.megakernel import make_regen
-
-        sg = jax.lax.stop_gradient
-        _, _, ids = trace_megakernel(
-            mega, sg(o), sg(d), sg(t), pixel_ids, sample_ids,
-            cfg.background, cfg.max_depth, jnp.uint32(seed),
-            interpret=interpret, phase_depths=phase_depths, active0=active0,
-            want_ids=True,
-            regen=make_regen(n_pix, npix_pad, spp, jnp.int32(0),
-                             jnp.int32(sample_start), jnp.uint32(seed),
-                             scene.flags.has_moving),
-        )
-    radiance, segments = replay_trace(
-        scene, ids, o, d, t, pixel_ids, sample_ids, bg,
-        cfg.max_depth, jnp.uint32(seed), remat=remat, active0=active0,
-    )
-    img = (radiance * active0[:, None]).reshape(spp, npix_pad, 3)
-    img = img.mean(axis=0)[:n_pix].reshape(
-        cfg.image_height, cfg.image_width, 3
-    )
-    out = (img,)
-    if return_segments:
-        out = out + (segments,)
-    if return_ids:
-        out = out + (ids,)
-    return out[0] if len(out) == 1 else out

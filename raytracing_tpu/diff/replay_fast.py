@@ -1,26 +1,14 @@
-"""Packed-table decision replay — fwd+bwd at wavefront speed.
+"""Packed-table decision replay.
 
 diff/replay.py's ``replay_trace`` re-derives each bounce's winner data by
 indexing ~25 separate scene arrays per bounce (``center[sid]``,
-``normal_all[qid]``, ``mats.fuzz[mid]``, ``tex.rgb[tid]``, …). Each of
-those is an XLA row gather, which lowers element-serially on TPU
-(~1.4 ms per 131k rays — tools/fbprof.py measured the full replay at
-441 ms forward / 815 ms fwd+bwd per 131k×depth-20 chunk).
-
-Two TPU-layout facts shape this module (both measured, tools/fbprof*.py):
-
-1. **Gathers**: every per-primitive quantity the bounce math needs is
-   packed into ONE differentiable table (built in-jit from the scene
-   pytree, so cotangents flow back through the packing) and fetched with
-   ONE ``table_lookup`` per bounce — a Pallas lane-gather forward and a
-   one-hot MXU matmul backward (ops/table_gather.py). No XLA gather or
-   scatter anywhere in the hot path.
-2. **Layout**: a ``(B, 3)`` array puts the 3-vector on the 128-wide lane
-   axis — 2.3% VPU utilization; the gather-free replay still cost
-   ~4 ms/bounce that way. Every quantity here is therefore carried as
-   separate ``(B,)`` components (the megakernel's ox/oy/oz style); the
-   only (B, 3) materializations are the one-time state split/restack at
-   the scan boundary.
+``normal_all[qid]``, ``mats.fuzz[mid]``, ``tex.rgb[tid]``, …). Here every
+per-primitive quantity the bounce math needs is packed into ONE
+differentiable table (built in-jit from the scene pytree, so cotangents
+flow back through the packing) and fetched with ONE row gather per bounce;
+its transpose, a scatter-add into the table, is XLA's own. Every quantity is
+carried as separate ``(B,)`` components, so the only ``(B, 3)``
+materializations are the state split/restack at the scan boundary.
 
 The bounce math mirrors render/integrator.py ``_bounce_once`` (which
 implements camera.hpp:180-232) op for op — scalarized forms of the same
@@ -47,7 +35,6 @@ from ..core import rng as rng_mod
 from ..core.vecmath import NEAR_ZERO_EPS
 from ..ops.intersect import BIG, PARALLEL_EPS, T_MIN, quad_plane_basis
 from ..ops.scatter import schlick_reflectance
-from ..ops.table_gather import table_lookup
 from ..scene.types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
@@ -88,14 +75,12 @@ def supported_fast(scene: Scene) -> bool:
 
 
 def build_replay_table(scene: Scene) -> jnp.ndarray:
-    """(L_pad, N_FIELDS) f32 packed per-global-primitive table, built
+    """(n_primitives, N_FIELDS) f32 packed per-global-primitive table, built
     in-jit from the scene pytree (differentiable: cotangents flow back
     to sphere centers, quad corners/edges, material params, texture
     rgbs through the packing slices)."""
     n_sph = scene.n_spheres
     n_quad = scene.n_quads
-    n = n_sph + n_quad
-    L = max(128, -(-n // 128) * 128)
 
     sph = scene.spheres
     qd = scene.quads
@@ -138,13 +123,8 @@ def build_replay_table(scene: Scene) -> jnp.ndarray:
             q_mt[:, None], q_fz[:, None], q_io[:, None], q_ck[:, None],
             q_re, q_ro, q_sc[:, None],
         ], axis=1)
-        rows = jnp.concatenate([rows_s, rows_q], axis=0)
-    else:
-        rows = rows_s
-    pad = jnp.zeros((L - n, N_FIELDS), jnp.float32)
-    # padding rows get ior 1.0 so masked dielectric math stays finite
-    pad = pad.at[:, _F_IOR].set(1.0)
-    return jnp.concatenate([rows, pad], axis=0)
+        return jnp.concatenate([rows_s, rows_q], axis=0)
+    return rows_s
 
 
 def replay_trace_fast(
@@ -187,7 +167,7 @@ def replay_trace_fast(
          active, segments) = st
 
         pid = jnp.where(ids_b >= 0, ids_b, 0)
-        v = table_lookup(table, pid)
+        v = jnp.take(table, pid, axis=0).T  # v[field] is (B,)
         is_quad = pid >= n_sph  # row order matches global ids
 
         # --- winner t (diff/replay.py winner_t, op for op) ---

@@ -2,7 +2,7 @@
 
 Build semantics mirror the reference (src/accelerator/bvh_node.hpp:25-77):
 recursive longest-axis median split, spans sorted by AABB min along the
-split axis, leaves of one primitive. But the *output* is TPU-native: instead
+split axis, leaves of one primitive. But the *output* is device-friendly: instead
 of a pointer tree traversed by recursion (bvh_node.hpp:89-90), nodes are
 flattened in depth-first preorder with a per-node **miss link**, enabling
 stackless lockstep traversal on device:

@@ -13,7 +13,7 @@ quad.hpp:62 — SURVEY.md §2.8.6 standardizes on open).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree as struct
 
 from ..core import interval as iv
 from ..core import vecmath as vm
@@ -107,10 +107,10 @@ def quad_ts(
     (plane solve + α/β interior test, quad.hpp:44-94)."""
     normal, dconst, w, degenerate = quad_plane_basis(scene)
     qd = scene.quads
-    # Explicit mul-sum, NOT einsum/dot: XLA lowers small-K dots to the MXU
-    # at default (bf16) precision on TPU, which is catastrophic at Cornell's
-    # 555-unit scale (t errors ~1e-2 relative → dead paths). The VPU f32
-    # form is both exact and faster for K=3.
+    # Explicit mul-sum, NOT einsum/dot: a dot may run at reduced matmul
+    # precision (TF32 on the GPU by default), which is catastrophic at
+    # Cornell's 555-unit scale (t errors ~1e-3 relative → dead paths).
+    # Elementwise f32 is exact and fuses for K=3.
     denom = jnp.sum(normal[None, :, :] * d[:, None, :], axis=-1)   # (B, M)
     safe_denom = jnp.where(jnp.abs(denom) < PARALLEL_EPS, 1.0, denom)
     n_dot_o = jnp.sum(normal[None, :, :] * o[:, None, :], axis=-1)
@@ -194,6 +194,66 @@ def hit_attributes(
     )
 
 
+def winner_t(
+    scene: Scene,
+    o: jnp.ndarray,
+    d: jnp.ndarray,
+    time: jnp.ndarray,
+    prim_id: jnp.ndarray,   # (B,) global id, -1 = miss
+    t_min: float = T_MIN,
+) -> jnp.ndarray:
+    """Differentiable winner-t recompute for a *known* primitive per ray —
+    the single-primitive forms of sphere_ts/quad_ts (sphere.hpp:47-80,
+    quad.hpp:44-62). Bit-matches the sweep's candidate t for the winning
+    row: the nearest root in (t_min, closest-so-far) is always the nearest
+    root in (t_min, ∞) for the *winner* (a farther root of the same sphere
+    cannot beat the nearer one), so no t_max clip is needed here."""
+    n_sph = scene.n_spheres
+    valid = prim_id >= 0
+    pid = jnp.where(valid, prim_id, 0)
+    is_quad = pid >= n_sph
+    sid = jnp.clip(pid, 0, n_sph - 1)
+    qid = jnp.clip(pid - n_sph, 0, scene.n_quads - 1)
+
+    sph = scene.spheres
+    c = sph.center[sid]
+    if scene.flags.has_moving:
+        c = c + time[:, None] * sph.velocity[sid]
+    oc = o - c
+    a = vm.length_squared(d)
+    half_b = jnp.sum(oc * d, axis=-1)
+    cq = vm.length_squared(oc) - sph.radius[sid] * sph.radius[sid]
+    disc = half_b * half_b - a * cq
+    sqrtd = vm.safe_sqrt(disc)
+    root0 = (-half_b - sqrtd) / a
+    root1 = (-half_b + sqrtd) / a
+    t_s = jnp.where(root0 > t_min, root0, root1)
+
+    normal_all, dconst_all, _, _ = quad_plane_basis(scene)
+    qn = normal_all[qid]
+    denom = jnp.sum(qn * d, axis=-1)
+    safe_denom = jnp.where(jnp.abs(denom) < PARALLEL_EPS, 1.0, denom)
+    t_q = (dconst_all[qid] - jnp.sum(qn * o, axis=-1)) / safe_denom
+
+    t = jnp.where(is_quad, t_q, t_s)
+    return jnp.where(valid, t, BIG)
+
+
+def hit_from_id(
+    scene: Scene,
+    prim_id: jnp.ndarray,
+    o: jnp.ndarray,
+    d: jnp.ndarray,
+    time: jnp.ndarray,
+    t_min: float = T_MIN,
+) -> HitBatch:
+    """Full differentiable HitBatch for a recorded winner id — winner-t
+    recompute + the shared attribute recompute (normal/front_face/UV,
+    ops/intersect.py hit_attributes)."""
+    t = winner_t(scene, o, d, time, prim_id, t_min)
+    return hit_attributes(scene, o, d, time, t, jnp.where(prim_id >= 0, prim_id, 0))
+
+
 def closest_hit_brute(
     scene: Scene,
     o: jnp.ndarray,
@@ -204,8 +264,7 @@ def closest_hit_brute(
 ) -> HitBatch:
     """Brute-force closest hit: candidate t over every primitive, then
     argmin — the vectorized form of the reference's linear scan
-    (hittable_list.hpp:40-64). O(B·P) but branch-free and fully dense;
-    optimal on TPU for small scenes."""
+    (hittable_list.hpp:40-64). O(B·P), branch-free and fully dense."""
     ts = sphere_ts(scene, o, d, time, t_min, t_max)
     tq = quad_ts(scene, o, d, t_min, t_max)
     all_t = jnp.concatenate([ts, tq], axis=1)          # (B, N+M)

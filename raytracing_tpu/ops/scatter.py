@@ -2,8 +2,8 @@
 
 Replaces virtual ``material::scatter``/``emitted`` dispatch
 (reference: src/core/material.hpp:21-240) with compute-all-and-select over
-the integer material tag. All four material responses are a handful of VPU
-ops each, so evaluating every branch and masking is cheaper on TPU than any
+the integer material tag. All four material responses are a handful of
+elementwise ops each, so evaluating every branch and masking is cheaper than any
 form of divergent dispatch.
 
 The reference's three stochastic decisions become mask selects driven by the
@@ -15,7 +15,7 @@ per-ray counter RNG:
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree as struct
 
 from ..core import rng as rng_mod
 from ..core import vecmath as vm

@@ -9,9 +9,7 @@ the same closest-so-far pruning as the reference's recursive traversal
 (src/accelerator/bvh_node.hpp:83-90) without recursion or stacks.
 
 The loop runs until every ray's node pointer reaches -1; divergence costs
-iterations (max walk length over the batch), not correctness. The Pallas
-megakernel (ops/megakernel.py) carries the tuned in-kernel version of this
-same walk.
+iterations (max walk length over the batch), not correctness.
 """
 from __future__ import annotations
 
@@ -35,15 +33,19 @@ _DIR_EPS = 1e-20  # clamp for axis-parallel slab reciprocals
 
 def _slab_test(o, inv_d, bmin, bmax, t_lo, t_hi):
     """AABB slab test (reference aabb.hpp:61-112): intersect the per-axis
-    [t0, t1] intervals with [t_lo, t_hi]; hit iff the result is non-empty
-    (strict, matching ``if (max <= min) return false``)."""
+    [t0, t1] intervals with [t_lo, t_hi]; hit iff the result is non-empty.
+    Unlike the reference's strict ``if (max <= min) return false`` (in
+    double), an empty-width interval still counts: a quad's box is padded
+    to only 1e-4 thick, which at the Cornell box's 555-unit scale is a
+    couple of f32 ulps in t, so t0 and t1 can round to the same value. The
+    cull stays conservative; the leaf test decides the hit."""
     t0 = (bmin - o) * inv_d
     t1 = (bmax - o) * inv_d
     tnear = jnp.minimum(t0, t1)
     tfar = jnp.maximum(t0, t1)
     enter = jnp.maximum(jnp.max(tnear, axis=-1), t_lo)
     exit_ = jnp.minimum(jnp.min(tfar, axis=-1), t_hi)
-    return enter < exit_
+    return enter <= exit_
 
 
 def _intersect_one_sphere(scene: Scene, sid, o, d, time, t_lo, t_hi):

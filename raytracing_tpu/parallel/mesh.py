@@ -11,7 +11,8 @@ scaling in this framework is expressed as `jax.sharding.Mesh` axes:
     "sequence" axis of this workload, SURVEY.md §5 long-context analog).
 
 Multi-host bring-up goes through :func:`initialize_distributed`
-(jax.distributed over DCN); within a slice, collectives ride ICI.
+(jax.distributed across hosts); within a host, NCCL collectives ride
+NVLink, which joins every card to every other.
 """
 from __future__ import annotations
 
@@ -50,11 +51,11 @@ def initialize_distributed(
     strict: Optional[bool] = None,
     **kwargs,
 ) -> bool:
-    """Multi-host bring-up (`jax.distributed.initialize` over DCN).
+    """Multi-host bring-up (`jax.distributed.initialize`).
 
     Returns True when the distributed runtime is (now) initialized. With no
-    explicit arguments this is best-effort auto-detection (TPU pods fill in
-    the coordination service from the environment) and failures are
+    explicit arguments this is best-effort auto-detection (cluster managers
+    fill in the coordination service from the environment) and failures are
     swallowed — the single-process path keeps working. When ``coordinator``
     / ``num_processes`` / ``process_id`` are given explicitly, failures
     RAISE (a silently-degraded multi-host run is worse than a crash);

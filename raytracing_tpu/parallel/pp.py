@@ -3,7 +3,7 @@ across a mesh axis, microbatches of rays streaming through the pipe.
 
 SURVEY.md §2.9 maps the reference's bounce recursion (camera.hpp:220) to
 "wavefront stages pipelined across cores". This module implements that
-GPipe-shaped schedule TPU-natively under ``shard_map``:
+GPipe-shaped schedule under ``shard_map``:
 
 * The ``pp`` axis has P stages; stage p applies the bounce window
   [b0_p, b1_p) of the depth budget (windows cover max_depth exactly).
@@ -14,7 +14,7 @@ GPipe-shaped schedule TPU-natively under ``shard_map``:
   bounce index is a traced scalar ``b0_p + k``, so the per-(pixel,
   sample, bounce) RNG streams are identical to the single-device
   render), and the state tuple shifts one stage down the ring with ONE
-  ``lax.ppermute`` per step — neighbor ICI traffic only, the classic
+  ``lax.ppermute`` per step — neighbor traffic only, the classic
   pipeline dataflow.
 * Stage P−1 banks each finished microbatch's radiance; a final ``psum``
   over the axis replicates the assembled image (all other stages

@@ -15,8 +15,8 @@ Two ring passes:
 
 After R steps each block is back on its home chip, so the result layout is
 unchanged. Compared with the psum-min reduction (parallel/scene_shard.py),
-communication is R point-to-point neighbor exchanges of the ray block over
-ICI instead of tree all-reduces of hit records — the classic
+communication is R point-to-point neighbor exchanges of the ray block
+instead of tree all-reduces of hit records — the classic
 bandwidth-optimal systolic alternative; both produce identical hits.
 
 Runs inside `shard_map` (parallel/shard.py, hit_method="ring").

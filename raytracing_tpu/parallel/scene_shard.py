@@ -1,6 +1,6 @@
 """Scene-sharded ("tensor parallel") closest-hit: primitives partitioned by
 range across the ``tp`` mesh axis, global closest hit via psum-min
-collectives over ICI (SURVEY.md §2.9 TP analog).
+collectives (SURVEY.md §2.9 TP analog).
 
 Each chip intersects the megabatch against its primitive shard; the global
 winner is found with two `pmin` reductions ((t), then (global prim id) for

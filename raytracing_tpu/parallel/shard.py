@@ -2,7 +2,8 @@
 
 Parallelization axes (SURVEY.md §2.9):
   * ``dp`` — pixels sharded across chips (each chip renders a pixel block),
-  * ``sp`` — samples-per-pixel sharded; partial radiance psum'd over ICI,
+  * ``sp`` — samples-per-pixel sharded; partial radiance psum'd across
+    devices,
   * ``tp`` — scene/primitive sharding with collective closest-hit
     (parallel/scene_shard.py).
 
@@ -26,10 +27,10 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.intersect import closest_hit_brute
 from ..render import camera as cam_mod
 from ..render.camera import CameraConfig, CameraParams
 from ..render.integrator import trace
+from ..render.renderer import pick_hit_fn
 from ..scene.types import Scene
 from .scene_shard import closest_hit_scene_sharded, shard_scene_primitives
 
@@ -49,8 +50,6 @@ def _device_render(
     hit_method: str,
     mode: str,
     grad_psum_axes: tuple = (),
-    mega=None,               # MegaScene → per-chip Pallas megakernel forward
-    mega_interpret: bool = False,
 ):
     # global sample window [start, stop): checkpoint/resume renders a
     # sub-range of samples per call (RNG ids are global, so any chunking
@@ -83,43 +82,15 @@ def _device_render(
             hit_fn = partial(closest_hit_scene_sharded_bvh, axis=tp_axis)
         else:
             hit_fn = partial(closest_hit_scene_sharded, axis=tp_axis)
-    elif hit_method == "bvh":
-        from ..ops.traverse import closest_hit_bvh
-
-        hit_fn = closest_hit_bvh
     else:
-        hit_fn = closest_hit_brute
+        hit_fn = pick_hit_fn(scene, hit_method)
 
-    if mega is not None:
-        # dp/sp-sharded megakernel forward: every chip runs the Pallas
-        # kernel on its own ray shard with the (replicated) flattened
-        # scene closed over; RNG ids are global, so the sharded render is
-        # identical to the single-device megakernel render. Forward-only
-        # (gradients use the XLA integrator / decision replay).
-        from ..ops.megakernel import trace_megakernel
-
-        phases = ([2, 3, cfg.max_depth - 5] if cfg.max_depth > 6 else None)
-        radiance, segments = trace_megakernel(
-            mega, o, d, t, pix, samp, cfg.background, cfg.max_depth,
-            seed, active0=active0, phase_depths=phases,
-            interpret=mega_interpret,
-        )
-    else:
-        radiance, segments = trace(
-            scene,
-            o,
-            d,
-            t,
-            pix,
-            samp,
-            jnp.asarray(cfg.background, jnp.float32),
-            cfg.max_depth,
-            seed,
-            hit_fn=hit_fn,
-            mode=mode,
-            active0=active0,
-            grad_psum_axes=grad_psum_axes,
-        )
+    radiance, segments = trace(
+        scene, o, d, t, pix, samp,
+        jnp.asarray(cfg.background, jnp.float32), cfg.max_depth, seed,
+        hit_fn=hit_fn, mode=mode, active0=active0,
+        grad_psum_axes=grad_psum_axes,
+    )
     valid = active0[:, None]
     radiance = jnp.where(valid, radiance, 0.0)
     part = radiance.reshape(spp_local, p_local, 3).sum(axis=0)
@@ -150,13 +121,13 @@ def build_sharded_renderer(
     hit_method: str = "brute",
     mode: str = "scan",
     grad_psum_axes: tuple = (),
-    mega_interpret: bool = False,
 ):
     """Compile a mesh-sharded render function.
 
-    ``hit_method="mega"``: each chip runs the Pallas block megakernel on
-    its ray shard (dp/sp meshes only — the kernel needs the whole scene;
-    use tp modes for scenes too large to replicate). Forward-only.
+    ``hit_method``: on dp/sp meshes any ``Renderer`` hit method (each chip
+    sweeps the whole replicated scene); with a ``tp`` axis ``"brute"``
+    (psum-min reduction), ``"ring"`` (ppermute ring) or ``"bvh"``
+    (per-shard subtrees).
 
     ``grad_psum_axes``: reduce each bounce's scene-parameter cotangent over
     these mesh axes during the backward sweep (render/integrator.py
@@ -180,29 +151,12 @@ def build_sharded_renderer(
     ntp = mesh.shape.get(tp, 1) if tp else 1
     nsp = mesh.shape.get(sp, 1) if sp else 1
 
-    mega = None
-    if hit_method == "mega":
-        assert tp is None, "hit_method='mega' needs a replicated scene (no tp)"
-        from ..ops.megakernel import build_mega_scene
-
-        mega = build_mega_scene(scene)
-        assert mega.supported, "scene exceeds the megakernel texture budget"
-
     if tp:
         scene = shard_scene_primitives(scene, ntp,
                                        use_bvh=(hit_method == "bvh"))
 
     spp_local = -(-cfg.samples_per_pixel // nsp)
     n_pix_pad = -(-cfg.n_pixels // ndp) * ndp
-    if mega is not None:
-        # per-chip ray batches must be 1024-ray block multiples
-        import math
-
-        from ..ops.megakernel import BLOCK
-
-        p_need = BLOCK // math.gcd(spp_local, BLOCK)
-        unit = ndp * p_need
-        n_pix_pad = -(-cfg.n_pixels // unit) * unit
 
     # PartitionSpec pytrees
     scene_spec = jax.tree.map(lambda _: P(), scene)
@@ -227,8 +181,6 @@ def build_sharded_renderer(
         hit_method=hit_method,
         mode=mode,
         grad_psum_axes=tuple(grad_psum_axes),
-        mega=mega,
-        mega_interpret=mega_interpret,
     )
     fn = shard_map(
         body,

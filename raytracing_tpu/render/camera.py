@@ -3,7 +3,7 @@ viewport geometry and batched ray generation
 (reference: src/core/camera.hpp:13-177).
 
 The reference couples configuration, derivation and the render loop in one
-class; here they split TPU-style:
+class; here they split into jit-friendly pieces:
 
   * :class:`CameraConfig` — static/hashable knobs (image size, spp, depth),
     safe to close over in jit,
@@ -20,7 +20,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree as struct
 
 from ..core import rng as rng_mod
 
@@ -91,7 +91,7 @@ def _unit(v):
 
 
 def derive(cfg: CameraConfig, params: CameraParams) -> DerivedCamera:
-    """Pure viewport derivation — the TPU analogue of camera::initialize
+    """Pure viewport derivation — the analogue of camera::initialize
     (camera.hpp:76-136)."""
     w_img = cfg.image_width
     h_img = cfg.image_height

@@ -73,7 +73,7 @@ def make_overlapped_bounce(hit_fn: HitFn, axes: tuple):
     replicated-input cotangents at the boundary) — a serial communication
     tail. This wrapper moves the reduction *into each bounce's backward*:
     the scene cotangent of bounce b is psum'd over ``axes`` as soon as that
-    bounce's VJP runs, so ICI traffic for bounce b overlaps the backward
+    bounce's VJP runs, so traffic for bounce b overlaps the backward
     compute of bounce b-1 and the scheduler can hide all but the last one.
 
     Correctness under the boundary reduction: the per-bounce psum leaves
@@ -81,9 +81,9 @@ def make_overlapped_bounce(hit_fn: HitFn, axes: tuple):
     axes' total size makes the boundary's final psum reconstruct exactly
     the unoverlapped value (N identical copies of g/N sum to g). Verified
     bit-for-bit against the plain path in tests/test_parallel.py
-    (test_overlapped_grad_psum_identical). On-hardware overlap profiling
-    needs a real multi-chip slice; on this machine the mechanism is
-    validated on the 8-virtual-device CPU mesh.
+    (test_overlapped_grad_psum_identical) on an 8-virtual-device CPU
+    mesh; whether the overlap hides the collectives on cards needs a
+    profiler trace of a multi-GPU run.
     """
     # Every traced value must be an explicit custom_vjp argument (tracers
     # may not be closed over); only the static hit_fn stays in the closure.

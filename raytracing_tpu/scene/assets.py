@@ -1,8 +1,8 @@
-"""Host-side image asset loading — the TPU-native replacement for the stb
+"""Host-side image asset loading — the replacement for the stb
 wrapper (reference: src/core/rtw_stb_image.hpp:28-178).
 
-Decoding happens once at scene-compile time on the host (PIL when available,
-plus a dependency-free PPM reader); texels then live on device in the
+Decoding happens once at scene-compile time on the host (a dependency-free
+PPM reader; other formats through PIL when it is installed); texels then live on device in the
 :class:`ImageAtlas`. Path probing mirrors the reference: ``$RTW_IMAGES``
 first, then the filename as given, then ``images/`` walking up to 6 parent
 levels (rtw_stb_image.hpp:40-61). A failed load produces the magenta
@@ -27,7 +27,7 @@ def _decode(path: str) -> Optional[np.ndarray]:
         except Exception:
             return None
     try:
-        from PIL import Image  # baked into the environment
+        from PIL import Image  # optional: only for non-PPM assets
 
         with Image.open(path) as im:
             arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
@@ -120,10 +120,6 @@ def generate_earthlike(height: int = 90, width: int = 180, seed: int = 7) -> np.
     Used as a stand-in for the reference's ``images/earthmap.jpg`` asset
     (which we do not copy); drop a real ``earthmap.jpg`` into ``images/`` or
     point ``$RTW_IMAGES`` at one to reproduce the reference scene exactly.
-    Any size up to flatten.MAX_PACKED_TEXELS (2M texels — 4x the
-    reference's own 1024×512 earthmap) runs the TPU megakernel fast path:
-    small images use the channel-replicated VMEM atlas, larger ones the
-    round-5 u8-packed tier.
     """
     rng = np.random.default_rng(seed)
     # Low-frequency value-noise continents on the sphere via random spherical
@@ -153,7 +149,6 @@ def generate_earthlike(height: int = 90, width: int = 180, seed: int = 7) -> np.
     polar = (v < 0.22) | (v > np.pi - 0.22)
     img = np.where(polar[..., None], ice, img)
     # u8 round-trip like every reference image (rtw_stb_image.hpp:154-169
-    # converts to bytes unconditionally); also makes any size eligible
-    # for the packed big-image kernel tier (flatten.atlas_table_packed).
+    # converts to bytes unconditionally)
     u8 = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
     return u8.astype(np.float32) / np.float32(255.0)

@@ -1,4 +1,4 @@
-"""Struct-of-arrays scene schema — the TPU-native replacement for the
+"""Struct-of-arrays scene schema — the device-side replacement for the
 reference's pointer-based object graph (``hittable_list`` of ``shared_ptr``s,
 reference: src/hittable/hittable_list.hpp:21-76).
 
@@ -19,7 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import pytree as struct
 
 # Material type tags (reference classes: material.hpp:42/:80/:122/:223)
 MAT_LAMBERTIAN = 0

@@ -1,5 +1,5 @@
 """Image output: PPM (the reference's only format, src/common/color.hpp:26-58
-+ camera.hpp:36-37) and PNG (via PIL when available).
++ camera.hpp:36-37) and PNG (8-bit RGB, written with the standard library).
 
 The gamma/quantize pass runs vectorized on device (core/color.py); the host
 only serializes bytes. When the native C++ writer (native/rt_native.cpp) is
@@ -9,7 +9,8 @@ available.
 from __future__ import annotations
 
 import os
-from typing import Optional
+import struct
+import zlib
 
 import numpy as np
 
@@ -46,13 +47,29 @@ def write_ppm(path: str, radiance: np.ndarray) -> None:
         f.writelines(lines)
 
 
+def png_bytes(img: np.ndarray) -> bytes:
+    """(H, W, 3) u8 → an 8-bit RGB PNG: one IDAT, filter type 0 per row."""
+    h, w, _ = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), np.ascontiguousarray(img, np.uint8)
+         .reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def write_png(path: str, radiance: np.ndarray) -> None:
     """PNG output (not in the reference; a quality-of-life addition)."""
-    from PIL import Image
-
     img = np.asarray(to_u8_image(jnp.asarray(radiance, jnp.float32)))
     _ensure_dir(path)
-    Image.fromarray(img).save(path)
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
 
 
 def write_image(path: str, radiance: np.ndarray) -> None:

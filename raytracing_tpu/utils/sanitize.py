@@ -14,9 +14,8 @@ rewrites). This module provides both checks as opt-in wrappers:
     raises with the failing check's location.
 
 CI runs the wavefront integrator under both (tests/test_sanitize.py); the
-Pallas kernels get the same service from interpret-mode runs
-(tests/test_megakernel.py), which execute with NumPy semantics where
-Python-level invalid indexing fails loudly.
+Pallas sweep kernel gets the same service from interpret-mode runs
+(tests/test_hit_triton.py).
 """
 from __future__ import annotations
 

@@ -1,12 +1,6 @@
-"""CI smoke for the bench harness itself (bench.py).
-
-Round-3 lesson: the driver's end-of-round bench run is the only consumer
-of bench_fwd_bwd, and a latent breakage there silently drops the
-forward+backward metric from the round's BENCH json. Exercise both the
-fused sweep and the unfused per-chunk fallback at a tiny shape on CPU
-(interpret-mode kernels) and assert they agree on the exact segment
-count and on gradients' finiteness.
-"""
+"""The bench harness itself (bench.py), at tiny shapes on the CPU: the
+measurement functions run and count segments, the result line carries the
+device fields, and the harness refuses to report without a GPU."""
 import os
 import sys
 
@@ -16,20 +10,41 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def test_fwd_bwd_fused_and_unfused_agree():
+def test_fwd_bwd_counts_forward_segments():
+    """The fwd+bwd sweep counts exactly the forward render's segments."""
     import bench
 
-    r_fused = bench.bench_fwd_bwd(width=64, spp=4, max_depth=5,
-                                  spp_chunk=2, fused=True)
-    r_unf = bench.bench_fwd_bwd(width=64, spp=4, max_depth=5,
-                                spp_chunk=2, fused=False)
-    assert r_fused["segments"] == r_unf["segments"] > 0
-    assert r_unf["fused"] is False
-    assert np.isfinite(r_fused["rays_per_s"])
+    r_bwd = bench.bench_fwd_bwd(width=16, spp=4, max_depth=3, spp_chunk=2,
+                                reps=1)
+    r_fwd = bench.bench_forward(width=16, spp=4, max_depth=3, reps=1)
+    assert r_bwd["segments"] == r_fwd["segments"] > 0
+    assert np.isfinite(r_bwd["rays_per_s"]) and r_bwd["spread"] >= 0
 
 
 def test_forward_bench_runs():
     import bench
 
-    r = bench.bench_forward(width=64, spp=4, max_depth=5)
-    assert r is not None and r["segments"] > 0
+    r = bench.bench_forward(width=16, spp=2, max_depth=3, reps=2)
+    assert r["segments"] > 0 and r["hit_method"] == "bvh"
+    assert r["setup_seconds"] > 0 and r["seconds"] > 0
+
+
+def test_result_line_carries_device_fields():
+    import bench
+
+    info = dict(platform="gpu", device_kind="NVIDIA H100 80GB HBM3",
+                device_count=1, card="NVIDIA H100 80GB HBM3, 700.00 W")
+    fwd = dict(rays_per_s=2.5e8, segments=10, seconds=1.0)
+    bwd = dict(rays_per_s=1e8, segments=10, seconds=2.0)
+    line = bench.result_line(info, fwd, bwd)
+    for k, v in info.items():
+        assert line[k] == v
+    assert line["value"] == 2.5e8 and line["vs_baseline"] == 0.5
+    assert line["rays_per_s_fwd_bwd"] == 1e8
+
+
+def test_no_gpu_fails():
+    import bench
+
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        bench.device_info()

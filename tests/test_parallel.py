@@ -11,9 +11,11 @@ from raytracing_tpu.parallel.shard import build_sharded_renderer, render_sharded
 from raytracing_tpu.render.camera import CameraParams
 from raytracing_tpu.render.renderer import render
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
-)
+
+@pytest.fixture(autouse=True)
+def eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 (virtual) devices")
 
 
 @pytest.fixture(scope="module")
@@ -84,38 +86,23 @@ class TestShardInvariance:
         # batch sweep and the per-winner recompute) at this size
         assert (diff > 1e-4).mean() < 0.01, f"outliers {(diff > 1e-4).mean()}"
 
-    def test_megakernel_under_dp(self):
-        """hit_method='mega': each dp shard runs the Pallas megakernel
-        (interpret mode on CPU) on its own ray block; global RNG ids make
-        the result match the single-device megakernel render exactly (up
-        to the per-pixel sample-sum association)."""
+    def test_triton_kernel_under_dp(self, monkeypatch):
+        """hit_method='triton' on a dp mesh: each shard runs the sweep
+        kernel (interpret mode here) on its own rays; global RNG ids make
+        the image equal the single-device render."""
         from functools import partial
 
-        import raytracing_tpu.ops.megakernel as mk
-        from raytracing_tpu.parallel.shard import build_sharded_renderer
-        from raytracing_tpu.render.camera import CameraParams
-        from raytracing_tpu.render.renderer import render
+        import raytracing_tpu.ops.hit_triton as ht
 
-        scene, cfg = build("three_spheres", image_width=48,
-                           samples_per_pixel=4, max_depth=5)
+        monkeypatch.setattr(ht, "closest_hit_triton",
+                            partial(ht.closest_hit_triton, interpret=True))
+        scene, cfg = build("three_spheres", image_width=16,
+                           samples_per_pixel=2, max_depth=3)
         mesh = make_mesh((8,), ("dp",))
-        fn, scene_prep, n_pix_pad = build_sharded_renderer(
-            scene, cfg, mesh, hit_method="mega", mega_interpret=True
-        )
-        pix = jnp.arange(n_pix_pad, dtype=jnp.int32)
-        part, segs = fn(scene_prep, CameraParams.from_config(cfg), pix,
-                        jnp.uint32(5))
-        img = (np.asarray(part)[: cfg.n_pixels]
-               / cfg.samples_per_pixel).reshape(
-                   cfg.image_height, cfg.image_width, 3)
-
-        orig = mk.trace_megakernel
-        try:
-            mk.trace_megakernel = partial(orig, interpret=True)
-            ref = render(scene, cfg, seed=5, hit_method="mega")
-        finally:
-            mk.trace_megakernel = orig
-        assert int(segs) == ref.segments
+        img, segs = render_sharded(scene, cfg, mesh, seed=5,
+                                   hit_method="triton")
+        ref = render(scene, cfg, seed=5, hit_method="brute")
+        assert segs == ref.segments
         np.testing.assert_allclose(img, ref.radiance, rtol=0, atol=1e-6)
 
     def test_bvh_hit_under_dp(self, reference_image):

@@ -13,6 +13,25 @@ from raytracing_tpu.utils import image_io
 from raytracing_tpu.utils.logging import JsonlLogger, scene_stats
 
 
+def _decode_png(data: bytes) -> np.ndarray:
+    """Decoder for the writer's own PNGs (8-bit RGB, filter type 0)."""
+    import struct
+    import zlib
+
+    i, idat = 8, b""
+    while i < len(data):
+        (n,) = struct.unpack(">I", data[i:i + 4])
+        tag, body = data[i + 4:i + 8], data[i + 8:i + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        i += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
 class TestImageIO:
     def test_ppm_round_trip(self, tmp_path):
         from raytracing_tpu.scene.assets import read_ppm
@@ -33,14 +52,29 @@ class TestImageIO:
         assert head == ["P3", "3 2", "255"]  # camera.hpp:36-37 header
 
     def test_png(self, tmp_path):
-        rad = np.random.default_rng(0).random((4, 4, 3)).astype(np.float32)
+        rad = np.random.default_rng(0).random((4, 5, 3)).astype(np.float32)
         p = str(tmp_path / "img.png")
         image_io.write_png(p, rad)
-        from PIL import Image
-
-        back = np.asarray(Image.open(p))
+        back = _decode_png(open(p, "rb").read())
         expect = np.asarray(image_io.to_u8_image(jnp.asarray(rad)))
         np.testing.assert_array_equal(back, expect)
+
+    def test_png_chunks_and_crc(self):
+        import struct
+        import zlib
+
+        data = image_io.png_bytes(np.zeros((2, 3, 3), np.uint8))
+        assert data[:8] == b"\x89PNG\r\n\x1a\n"
+        tags, i = [], 8
+        while i < len(data):
+            (n,) = struct.unpack(">I", data[i:i + 4])
+            tag, body = data[i + 4:i + 8], data[i + 8:i + 8 + n]
+            (crc,) = struct.unpack(">I", data[i + 8 + n:i + 12 + n])
+            assert crc == zlib.crc32(tag + body)
+            tags.append(tag)
+            i += 12 + n
+        assert tags == [b"IHDR", b"IDAT", b"IEND"]
+        assert struct.unpack(">IIBBBBB", data[16:29]) == (3, 2, 8, 2, 0, 0, 0)
 
 
 class TestNative:
